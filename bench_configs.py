@@ -1,204 +1,112 @@
-"""Measured sweep of the five BASELINE.json configurations.
+"""Device-step timings of the five BASELINE.json configurations.
 
-Not the driver benchmark (that's bench.py, one JSON line) — this is the
-evidence table: every BASELINE config exercised on the current device
-with the same dispatch-artifact-immune methodology (in-program scan
-chain, value fetch, two-point slope). Results print as a markdown table.
+Not the one-line benchmark (that's bench.py) — this is the per-config
+table: each configuration's auto transform step on the current GPU,
+timed with back-to-back dispatches ending in ``block_until_ready`` after
+a warm-up (median of several samples, spread printed). Device step only:
+the CLI session path is exercised by chip_smoke.py. Runs only on an
+NVIDIA GPU; the card's name and power limit go to stderr.
 
-Usage: python bench_configs.py [--quick]
+Usage: python bench_configs.py [--only <substr>]
 """
 
 from __future__ import annotations
 
+import statistics
 import sys
-import time
-from functools import partial
 
 import numpy as np
 
 
-def _slope_time(many, lo, hi, isolate=3):
-    """Contention-robust two-point slope, the committed protocol since
-    round 3: k isolated rounds each time t(lo) and t(hi) (best-of-reps),
-    and the reported figure is the slope between the POOLED minima of
-    the two endpoints. Chip time-slicing on this shared terminal only
-    ever SLOWS a sample, so the pooled minimum of each endpoint is its
-    honest uncontended value — whereas min-of-per-round-slopes can be
-    fabricated FAST by a stall that hits only t(lo) (observed: a 49.9
-    GS/s artifact on config 2 whose isolated re-measure read 13.2).
-    Per-round slopes are printed with their spread as the contention
-    diagnostic (round-2's config-3 "3.3-6.5 GS/s" was this spread)."""
-    def t(iters, reps=2):
-        np.asarray(many(iters))
-        best = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            np.asarray(many(iters))
-            best = min(best, time.perf_counter() - t0)
-        return best
+def main() -> int:
+    from rtl_power_fftw_tpu.compile_cache import configure_compile_cache
+    from rtl_power_fftw_tpu.utils.gpu import (card_name_and_power_limit,
+                                             require_gpu, time_per_call)
 
-    t_lo, t_hi, slopes = float("inf"), float("inf"), []
-    rounds, total = max(isolate, 1), 0
-    while True:
-        for _round in range(rounds):
-            a, b = t(lo), t(hi)
-            t_lo, t_hi = min(t_lo, a), min(t_hi, b)
-            if b > a:
-                slopes.append((b - a) / (hi - lo))
-        total += rounds
-        if t_hi > t_lo or total >= 9:
-            break
-        rounds = 2  # every t(hi) so far stalled: pool more rounds
-    if t_hi <= t_lo:
-        import sys
-        print("  warning: slope noise-dominated after "
-              f"{total} rounds; increase iteration counts", file=sys.stderr)
-        return float("nan")
-    if slopes:
-        import sys
-        spread = (max(slopes) - min(slopes)) / min(slopes)
-        print(f"  per-round slopes (us/step): "
-              + " ".join(f"{s*1e6:,.0f}" for s in sorted(slopes))
-              + f"  spread {spread*100:.0f}%", file=sys.stderr)
-    return (t_hi - t_lo) / (hi - lo)
-
-
-def main() -> None:
-    import jax
-    import jax.numpy as jnp
-
-    from rtl_power_fftw_tpu.auxdata import make_window
-    from rtl_power_fftw_tpu.ops.spectral import PsdStep
-
-    quick = "--quick" in sys.argv
-    # --only <substr>: run just the configs whose name contains <substr>
-    # (e.g. --only config3) — for isolated re-measures of one row.
+    configure_compile_cache()
     only = ""
     if "--only" in sys.argv:
         idx = sys.argv.index("--only") + 1
         if idx >= len(sys.argv):
-            print("usage: bench_configs.py [--quick] [--only <substr>]",
+            print("usage: bench_configs.py [--only <substr>]",
                   file=sys.stderr)
-            raise SystemExit(2)
+            return 2
         only = sys.argv[idx]
-    dev = jax.devices()[0]
-    print(f"device: {dev} ({dev.platform})", file=sys.stderr)
+    try:
+        devs = require_gpu()
+    except SystemExit as e:
+        print(f"bench_configs: {e}", file=sys.stderr)
+        return 1
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from rtl_power_fftw_tpu.auxdata import make_window
+    from rtl_power_fftw_tpu.ops.spectral import PsdStep
+    from rtl_power_fftw_tpu.parallel import ShardedPsdStep, make_mesh
+
+    dev = devs[0]
+    print(f"device: {dev.device_kind} x{len(devs)}; card: "
+          f"{card_name_and_power_limit()}", file=sys.stderr)
     rng = np.random.default_rng(0)
     rows = []
 
-    def print_table():
-        if only and not rows:
-            print(f"warning: --only {only!r} matched no config",
-                  file=sys.stderr)
-        print("| config | N | frames/step | us/step | spectra/s | GS/s |")
-        print("|---|---|---|---|---|---|")
-        for r in rows:
-            print("| " + " | ".join(str(c) for c in r) + " |")
+    def report(name, path, N, spectra_per_step, times):
+        per = statistics.median(times)
+        rows.append((name, path, N, spectra_per_step, f"{per * 1e6:,.1f}",
+                     f"{spectra_per_step * N / per / 1e9:.3f}"))
+        print(f"  {name}: {path}, {per * 1e6:,.1f} us/step (samples "
+              f"{min(times) * 1e6:,.1f}-{max(times) * 1e6:,.1f})",
+              file=sys.stderr)
 
-    def measure(name, N, F, lo, hi, window=None, baseline=None, isolate=3):
-        """One config: F frames of N bins per step, through the SHIPPING
-        PsdStep auto path (round 3 ladder: lane-matched hybrid 512-3072,
-        four-step matmul (3072, 8192], fused Pallas kernel pow-2
-        4096-65536, large-N hybrid past that), so the table reflects
-        what the tool actually runs."""
+    def measure(name, N, F, window=None, baseline=None):
         if only and only not in name:
             return
         step = PsdStep(N, F, window=window, backend="auto")
         F = step.F
         fn = step.lowered_fn()
-        nv = jnp.int32(F)
         raw_host = rng.integers(0, 256, (F, 2 * N), dtype=np.uint8)
         raw = jax.device_put(
             raw_host.view(np.uint16) if step.takes_u16 else raw_host, dev)
-        pdt = jnp.uint16 if step.takes_u16 else jnp.uint8
-        b = None if baseline is None else jnp.asarray(baseline)
-        print(f"  {name}: auto -> "
-              f"{'u16-view fused path' if step.takes_u16 else 'four-step/XLA'}",
-              file=sys.stderr)
+        nv = jnp.int32(F)
+        if baseline is None:
+            call = lambda: fn(raw, nv)  # noqa: E731
+        else:
+            b = jax.device_put(np.asarray(baseline, np.float32), dev)
+            sub = jax.jit(lambda r, n, b: fn(r, n) - b)
+            call = lambda: sub(raw, nv, b)  # noqa: E731
+        report(name, step.path, N, F, time_per_call(call))
 
-        @partial(jax.jit, static_argnums=1)
-        def many(raw, iters):
-            def body(carry, i):
-                part = fn(raw + i.astype(pdt), nv)
-                if b is not None:
-                    part = part - b  # baseline ride-along (output units)
-                return carry + part, ()
-            acc, _ = jax.lax.scan(body, jnp.zeros(N, jnp.float32),
-                                  jnp.arange(iters))
-            return acc
-
-        per = _slope_time(lambda iters: many(raw, iters), lo, hi,
-                         isolate=isolate)
-        spectra = F / per
-        gsps = spectra * N / 1e9
-        rows.append((name, N, F, f"{per*1e6:,.0f}",
-                     f"{spectra:,.0f}", f"{gsps:.2f}"))
-        print(f"  {name}: {per*1e6:,.0f} us/step, {gsps:.2f} GS/s",
-              file=sys.stderr)
-
-    lo, hi = (8, 24) if quick else (16, 64)
-
-    # 1. 2048-bin, 100-average single-shot (recorded buffer).
-    measure("config1: 2048-bin x100 avg", 2048, 4096 if not quick else 1024,
-            lo, hi)
-    # 2. 8192-bin Welch/Hann + baseline subtraction.
-    measure("config2: 8192-bin welch+hann+baseline", 8192,
-            1024 if not quick else 256, lo, hi,
+    measure("config1: 2048-bin", 2048, 4096)
+    measure("config2: 8192-bin hann+baseline", 8192, 1024,
             window=make_window("hann", 8192),
-            baseline=np.linspace(-1, 1, 8192).astype(np.float32))
-    # 3. 1M-point long-integration FFT — best-of-5 ISOLATED slopes with
-    # the spread printed (round-2's published 3.3-6.5 GS/s range was
-    # chip-contention, not the kernel; the committed protocol pins it).
-    measure("config3: 1M-point FFT", 1 << 20, 8, max(lo // 2, 4), hi // 2,
-            isolate=5)
-    # 4. 256 hops x 2048 bins batched: the hop axis folds into the frame
-    # batch (8 frames per hop x 256 hops = 2048 frames per step).
-    measure("config4: 256 hops x 2048-bin scan", 2048,
-            2048 if not quick else 512, lo, hi)
+            baseline=np.linspace(-1, 1, 8192))
+    measure("config3: 1M-point", 1 << 20, 8)
+    # 256 hops x 2048 bins: 8 frames per hop folded into one batch.
+    measure("config4: 256 hops x 2048-bin", 2048, 2048)
 
-    # 5. 16 streams psum-reduced over the mesh: the SHIPPING ShardedPsdStep
-    # (round 2: the fused Pallas kernel's streams variant per shard on TPU),
-    # sharded step + psum chained in-program with the slope methodology.
-    from jax.sharding import NamedSharding, PartitionSpec as P
-    from rtl_power_fftw_tpu.parallel import ShardedPsdStep, make_mesh
-    config5_name = "config5: 16 streams psum"
-    if only and only not in config5_name:
-        print_table()
-        return
-    S, N5, F5 = 16, 2048, 256 if not quick else 128
-    mesh = make_mesh(min(len(jax.devices()), S))
-    step5 = ShardedPsdStep(mesh, N5, F5, streams=S, backend="auto")
-    F5 = step5.F
-    print(f"  config5: sharded auto -> "
-          f"{'u16-view fused path' if step5.takes_u16 else 'four-step/XLA'}",
-          file=sys.stderr)
-    raw5_host = rng.integers(0, 256, (S, F5, 2 * N5), dtype=np.uint8)
-    raw5 = jax.device_put(
-        raw5_host.view(np.uint16) if step5.takes_u16 else raw5_host,
-        NamedSharding(mesh, P(step5.axis)))
-    nv5 = jnp.asarray(np.full((S,), F5, np.int32))
-    pdt5 = jnp.uint16 if step5.takes_u16 else jnp.uint8
-    fn5 = step5._step
+    name5 = "config5: 16 streams psum"
+    if not only or only in name5:
+        S, N5, F5 = 16, 2048, 256
+        mesh = make_mesh(min(len(devs), S))
+        step5 = ShardedPsdStep(mesh, N5, F5, streams=S, backend="auto")
+        raw5_host = rng.integers(0, 256, (S, step5.F, 2 * N5),
+                                 dtype=np.uint8)
+        raw5 = jax.device_put(
+            raw5_host.view(np.uint16) if step5.takes_u16 else raw5_host,
+            NamedSharding(mesh, P(step5.axis)))
+        nv5 = jax.device_put(np.full((S,), step5.F, np.int32),
+                             NamedSharding(mesh, P(step5.axis)))
+        fn5 = step5._step
+        report(f"{name5} (mesh {mesh.devices.size})", step5.path, N5,
+               S * step5.F, time_per_call(lambda: fn5(raw5, nv5)[1]))
 
-    @partial(jax.jit, static_argnums=1)
-    def many5(raw, iters):
-        def body(c, i):
-            ps, comb = fn5(raw + i.astype(pdt5), nv5)
-            return c + comb, ()
-        acc, _ = jax.lax.scan(body, jnp.zeros(N5, jnp.float32),
-                              jnp.arange(iters))
-        return acc
-
-    per = _slope_time(lambda iters: many5(raw5, iters), lo, hi)
-    spectra = S * F5 / per
-    rows.append((config5_name, N5, S * F5,
-                 f"{per*1e6:,.0f}", f"{spectra:,.0f}",
-                 f"{spectra*N5/1e9:.2f}"))
-    print(f"  config5: {per*1e6:,.0f} us/step, {spectra*N5/1e9:.2f} GS/s",
-          file=sys.stderr)
-
-    print_table()
+    print("| config | path | N | spectra/step | us/step | GS/s |")
+    print("|---|---|---|---|---|---|")
+    for r in rows:
+        print("| " + " | ".join(str(c) for c in r) + " |")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -4,7 +4,7 @@
 Generates a short IQ capture (a 30 dB tone over noise) with the same
 synthetic source the CLI uses, then runs every estimator in
 ``rtl_power_fftw_tpu.models`` over it and prints a one-line summary
-each. No hardware needed; runs on CPU or TPU alike.
+each. No hardware needed; runs on CPU or GPU alike.
 
 Usage: python examples/estimators_demo.py [seconds]
 """

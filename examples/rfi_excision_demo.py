@@ -7,7 +7,7 @@ Builds a recording of Gaussian noise with a strong tone burst present in
 and with ``--sk-excise 3`` — and prints the contaminated bin before and
 after, plus the per-bin spectral-kurtosis sidecar values around it.
 
-No hardware needed; runs on CPU or TPU alike.
+No hardware needed; runs on CPU or GPU alike.
 
 Usage: python examples/rfi_excision_demo.py
 """

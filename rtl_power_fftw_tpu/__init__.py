@@ -1,6 +1,6 @@
-"""rtl_power_fftw_tpu — a TPU-native spectral-estimation framework.
+"""rtl_power_fftw_tpu — an accelerator spectral-estimation framework.
 
-A ground-up JAX/XLA/Pallas rebuild with the capabilities of
+A ground-up JAX/XLA rebuild with the capabilities of
 AD-Vega/rtl-power-fftw: 8-bit IQ streams → windowed, averaged power spectral
 densities, with wideband frequency-scan stitching, continuous/time-bounded
 sessions, graceful interrupts, gnuplot-ready text output and binary matrix

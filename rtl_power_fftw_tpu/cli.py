@@ -12,6 +12,7 @@ import sys
 from typing import List, Optional
 
 from .auxdata import AuxData
+from .compile_cache import configure_compile_cache
 from .config import parse_args
 from .exceptions import ReturnValue, RPFexception
 from .session import run_session
@@ -31,6 +32,7 @@ def _jax_runtime_errors():
 def main(argv: Optional[List[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    configure_compile_cache()
     final_retval = ReturnValue.Success
     source = None
     try:
@@ -51,7 +53,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(str(exception), file=sys.stderr)
         final_retval = exception.return_value
     except _jax_runtime_errors() as exception:
-        # A device-side runtime failure (lost/preempted TPU, device OOM)
+        # A device-side runtime failure (lost device, device OOM)
         # is this framework's analogue of a librtlsdr hardware failure:
         # the reference exits 7 there (exceptions.h:25-34, device.cxx).
         print(f"Device runtime error: {exception}", file=sys.stderr)

@@ -146,7 +146,7 @@ class Params:
     bin_file: str = ""
     meta_file: str = ""
 
-    # --- TPU-framework extensions (not present in the reference) ---
+    # --- Framework extensions (not present in the reference) ---
     # IQ source specification: "synthetic[:spec]", "file:<path>",
     # "rtl_tcp:<host>:<port>". Empty string means "real device", which in
     # this build resolves through the registered device table.
@@ -184,7 +184,7 @@ class Params:
     # Device-step frame batch (0 = derive from buffer length).
     frames_per_step: int = 0
     # FFT backend: "auto" | "xla" | "matmul" | "fourstep" | "fft4"
-    # | "hybrid" | "pallas" | "bluestein" | "fourstep4m" | "fourstep4x".
+    # | "hybrid" | "bluestein" | "fourstep4m" | "fourstep4x".
     fft_backend: str = "auto"
     # Write a jax.profiler trace of the session to this directory.
     profile_dir: str = ""
@@ -207,7 +207,7 @@ class Params:
 def _build_parser() -> _Parser:
     p = _Parser(
         prog="rtl_power_fftw_tpu",
-        description="Obtain power spectrum from IQ sources using TPU-accelerated FFTs.",
+        description="Obtain power spectrum from IQ sources using accelerated FFTs.",
         add_help=True,
     )
     # Option surface mirrors params.cxx:103-143 (same short/long names).
@@ -289,7 +289,7 @@ def _build_parser() -> _Parser:
                         "surviving blocks; fully-flagged bins fall back "
                         "to the unexcised average.")
     p.add_argument("--streams", type=int, default=1,
-                   help="Parallel IQ streams sharded across the TPU mesh.")
+                   help="Parallel IQ streams sharded across the device mesh.")
     p.add_argument("--shard-transform", action="store_true",
                    help="Shard each FFT across the device mesh (sequence "
                         "parallelism for huge N; power-of-two bins whose "
@@ -298,25 +298,21 @@ def _build_parser() -> _Parser:
                    help="FFT frames per device step (0 = auto).")
     p.add_argument("--fft-backend", type=str, default="auto",
                    choices=["auto", "xla", "matmul", "fourstep", "fft4",
-                            "hybrid", "pallas", "bluestein", "fourstep4m",
+                            "hybrid", "bluestein", "fourstep4m",
                             "fourstep4x"],
-                   help="FFT implementation used on device (hybrid = FFT "
-                        "stage 1 + split twiddle + matmul stage 2, the "
-                        "tone-robust default for most composite N incl. "
-                        "the very-large-N modes on TPU; fft4 = two-level "
-                        "FFT four-step; bluestein = chirp-Z for awkward "
-                        "N, the TPU default above 8192 bins when N has "
-                        "no factor >= 8; fourstep4m = compensated "
-                        "four-step, the windowed very-large-N "
-                        "budget-truth path; fourstep4x = split-pass "
-                        "four-step, the windowed session-size "
-                        "budget-truth path).")
+                   help="FFT implementation used on device (auto = the "
+                        "platform FFT on the GPU, the measured CPU ladder "
+                        "elsewhere; xla = the platform FFT; hybrid = FFT "
+                        "stage 1 + split twiddle + matmul stage 2; fft4 = "
+                        "two-level FFT four-step; bluestein = chirp-Z for "
+                        "awkward N; fourstep4m = compensated four-step; "
+                        "fourstep4x = split-pass bf16 four-step).")
     p.add_argument("--precision", type=str, default="highest",
                    choices=["highest", "high"],
                    help="Transform precision: 'highest' holds the "
-                        "reference parity budget; 'high' picks the fastest "
-                        "relaxed-parity step per size (+5-35%% at "
-                        "N <= 1024).")
+                        "reference parity budget; 'high' relaxes the "
+                        "matmul stages of the matmul rungs (ignored by "
+                        "auto on the GPU, which runs the platform FFT).")
     p.add_argument("--record", type=str, default="", metavar="file",
                    help="Record the raw consumed IQ bytes to this file "
                         "(replayable with --source file:<file>; with "
@@ -624,7 +620,7 @@ def parse_args(argv: List[str], stderr=None) -> Params:
                 f"{flag} cannot be combined with "
                 + ", ".join(conflicts) + ". Exiting.",
                 ReturnValue.InvalidArgument)
-        if params.fft_backend in ("pallas", "hybrid", "fft4"):
+        if params.fft_backend in ("hybrid", "fft4"):
             # (fourstep4m/fourstep4x DO expose per-frame spectra —
             # dft_power_fourstep4m/4x — and are honored verbatim by
             # the SK family's _sk_mode, so no warning for those.)

@@ -1,6 +1,6 @@
 """Typed errors and process exit codes.
 
-TPU-native re-design of the reference's error model
+Re-design of the reference's error model
 (/root/reference/src/exceptions.h:25-47): a single exception type carrying a
 message plus a ``ReturnValue`` that becomes the process exit code, and a
 dedicated ``TuneError`` for recoverable tuning failures

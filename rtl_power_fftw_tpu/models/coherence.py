@@ -8,7 +8,7 @@ for the reference's radio-astronomy use case, which only ever saw one
 receiver). Coherence γ² = |Sxy|² / (Sxx·Syy) ∈ [0, 1] measures how
 correlated each bin is.
 
-TPU-native: one fused step accumulates Sxx, Syy and the complex Sxy
+One fused step accumulates Sxx, Syy and the complex Sxy
 (as re/im planes) in a single pass over both streams' frame batches —
 four (N,)-sized outputs per step, everything else stays on-chip.
 """

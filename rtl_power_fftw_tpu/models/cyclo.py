@@ -11,7 +11,7 @@ is the standard detector/classifier for such signals (and a sharper RFI
 discriminator than energy alone — cf. models/kurtosis.py, which only
 sees per-bin amplitude statistics).
 
-TPU-native estimator (frequency-smoothing/FFT-accumulation form): one
+Device estimator (frequency-smoothing/FFT-accumulation form): one
 batched (F, N) FFT — the same transform batch the PSD pipeline uses —
 then, for each of the K requested α lags (multiples of the bin width
 rate/N), an elementwise shifted-product accumulation over frames. The

@@ -10,7 +10,7 @@ over M accumulated spectra. For Gaussian noise E[SK] = 1; tones and
 time-variable interference push SK away from 1, so thresholding SK flags
 contaminated bins without touching the averaged spectrum.
 
-TPU-native: the device step accumulates BOTH moments in one fused pass —
+The device step accumulates BOTH moments in one fused pass —
 the |X|⁴ accumulation rides the same transform outputs, so the marginal
 cost over a plain PSD is one elementwise square and one reduction.
 """
@@ -95,28 +95,14 @@ def _sk_step(N: int, F: int, windowed: bool, backend: str,
 
 def _sk_mode(N: int, windowed: bool, backend: str) -> str:
     """Resolve the SK family's per-frame transform mode, honoring
-    EXPLICIT backend requests verbatim (round-4 advisor finding: an
-    explicit --fft-backend fourstep on a windowed SK session was
-    silently substituted with fourstep4m while path introspection still
-    said 'fourstep'). Only the AUTO-derived windowed mode upgrades the
-    plain four-step to the compensated one — the accuracy the windowed
-    PSD band ships — and the substitution is visible in ``path``."""
+    EXPLICIT backend requests verbatim (an explicit --fft-backend
+    fourstep on a windowed SK session stays the plain four-step, and
+    ``path`` says so); auto follows tapered_batch_mode."""
     from ..ops.spectral import tapered_batch_mode
     if backend in ("matmul", "fourstep", "fourstep4m", "fourstep4x",
                    "xla", "bluestein"):
         return backend
-    mode = tapered_batch_mode(N)
-    if windowed and mode == "fourstep":
-        # Mirror the windowed PSD ladder: the split-pass four-step on
-        # the session band (its strict-yard budget-truth path, round
-        # 5), the compensated four-step elsewhere.
-        from ..ops.dft import best_fourstep4x_split
-        n1x, _ = best_fourstep4x_split(N)
-        if n1x in (8, 16, 32) and 1024 <= N <= 16384:
-            mode = "fourstep4x"
-        else:
-            mode = "fourstep4m"
-    return mode
+    return tapered_batch_mode(N)
 
 
 def compute_sk(s1: np.ndarray, s2: np.ndarray, M: int) -> np.ndarray:
@@ -141,9 +127,8 @@ class SkSessionStep:
 
     The second moment needs PER-FRAME spectra, so the fused
     (pre-accumulated) kernel paths don't apply; the transform follows
-    ops.spectral.tapered_batch_mode's band choice (all-matmul four-step
-    on the TPU band, platform FFT elsewhere, matmul DFT on explicit
-    request or compile fallback).
+    ops.spectral.tapered_batch_mode's choice (the platform FFT; an
+    explicit backend or the compile fallback selects another).
 
     With ``excise_sigma > 0`` (``--sk-excise``) the step ALSO gates each
     block's per-bin contribution on the block's own SK, returning the

@@ -2,7 +2,7 @@
 
 The lowest-variance estimator family for a fixed data length: each frame
 is windowed by K orthogonal DPSS (Slepian) tapers and the K eigenspectra
-are averaged. On TPU the taper axis is just another batch dimension —
+are averaged. On the device the taper axis is just another batch dimension —
 frames × tapers fold into one big batched transform, so the K× extra
 FLOPs ride the same fused pipeline that does plain Bartlett averaging.
 
@@ -68,8 +68,9 @@ def _mt_core(re, im, fmask, tapers, *, N: int, F: int, K: int,
     re/im: (F, N) dequantized planes; fmask: (F,) validity; tapers:
     (K, N). mode selects the transform: "fourstep" — a K-LOOPED
     COMPENSATED four-step (one fourstep4m partial per taper via
-    lax.scan) on TPU; "xla" — the platform FFT over the (F·K, N)
-    tapered batch (the class yardstick on CPU); "matmul" — direct DFT
+    lax.scan); "xla" — the platform FFT over the (F·K, N) tapered
+    batch (the class yardstick, and what tapered_batch_mode picks);
+    "bluestein" — a K-looped chirp-Z partial; "matmul" — direct DFT
     (compile fallback, same role as PsdStep's).
 
     The round-4 "fourstep" redesign (probes/multitaper_fast2.py,
@@ -91,11 +92,7 @@ def _mt_core(re, im, fmask, tapers, *, N: int, F: int, K: int,
     from ..ops.spectral import dft_power_matmul
 
     if mode == "bluestein":
-        # Awkward N (2·prime class) above the matmul cap on TPU: the
-        # K-looped chirp-Z partial — same any-N rationale as the PSD
-        # ladder's bluestein rung (the "xla" mode's monolithic lowering
-        # is compile-refused with client poisoning at 2^16..2^20 on the
-        # current toolchain).
+        # Awkward N (2·prime class): the K-looped chirp-Z partial.
         def body_b(acc, t):
             p = bluestein_psd_partial(re * t, im * t, fmask, chunk=chunk)
             return acc + p, ()
@@ -228,7 +225,7 @@ class ShardedMultitaperStep:
     """The multitaper estimator over the stream mesh (``--streams`` +
     ``--multitaper``): same call contract as parallel.sharded.
     ShardedPsdStep — (S, F, 2N) u8 + (S,) n_valid → (per_stream (S, N)
-    sharded, combined (N,) replicated via one psum over ICI). Stateless
+    sharded, combined (N,) replicated via one psum). Stateless
     (no reset needed): eigenspectrum averaging commutes with any
     partition of the frames, so the combined result equals running
     MultitaperSessionStep per stream and summing."""

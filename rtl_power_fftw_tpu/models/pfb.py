@@ -5,7 +5,7 @@ M branches, then an M-point FFT per output frame — is the standard
 radio-astronomy upgrade over the plain FFT periodogram the reference
 computes (datastore.cxx:66-88): far sharper channel isolation (tone
 leakage drops by the prototype's stopband) at the cost of P× the
-input history per frame. TPU-first formulation: the P branch
+input history per frame. Device formulation: the P branch
 multiplies are an unrolled weighted sum of shifted (T, M) planes
 (static P, fused by XLA) feeding one batched M-point FFT — no gather,
 no dynamic shapes — with the house two-stage f32 tree sum and float64
@@ -55,10 +55,9 @@ def _pfb_core(xr: jax.Array, xi: jax.Array, h: jax.Array,
     mask, then the house two-stage f32 tree sum.
 
     The polyphase sums are windowed-class planes, so ``mode`` follows
-    ops.spectral.tapered_batch_mode: "fourstep" — the all-matmul
-    four-step partial on the TPU band (tone-robust there, never touches
-    the platform's monolithic-FFT lowering); "xla" — the platform FFT
-    (the class yardstick on CPU); "matmul" — direct DFT (compile
+    ops.spectral.tapered_batch_mode: "xla" — the platform FFT (the
+    class yardstick); "fourstep" — the all-matmul four-step partial;
+    "bluestein" — the chirp-Z partial; "matmul" — direct DFT (compile
     fallback, same role as PsdStep's)."""
     sr = jnp.zeros((T, M), jnp.float32)
     si = jnp.zeros((T, M), jnp.float32)
@@ -71,8 +70,7 @@ def _pfb_core(xr: jax.Array, xi: jax.Array, h: jax.Array,
         m = fmask if fmask is not None else jnp.ones((T,), jnp.float32)
         return fourstep_psd_partial(sr, si, m, n1, n2, chunk=chunk)
     if mode == "bluestein":
-        # Awkward M above the matmul cap on TPU (same any-N rationale
-        # as the PSD ladder's chirp-Z rung).
+        # Awkward M (same any-N rationale as the PSD chirp-Z rung).
         from ..ops.dft import bluestein_psd_partial
         m = fmask if fmask is not None else jnp.ones((T,), jnp.float32)
         return bluestein_psd_partial(sr, si, m, chunk=chunk)
@@ -264,7 +262,7 @@ class ShardedPfbStep:
 
     Same call contract as parallel.sharded.ShardedPsdStep — ``(S, F, 2N)``
     u8 frames + ``(S,)`` n_valid → ``(per_stream (S, N) f32`` sharded on the
-    stream axis, ``combined (N,) f32`` replicated via ONE psum over ICI) —
+    stream axis, ``combined (N,) f32`` replicated via ONE psum) —
     so MultiStreamAcquisition's consumer loop drives it unchanged. The
     PfbSessionStep's stateful u8 filter history is carried HOST-side per
     stream as an ``(S, P−1, 2N)`` tail (127-fill == zero signal,

@@ -4,7 +4,7 @@ segments (BASELINE.json config 2).
 The reference has no overlap support; this is the standard extension —
 overlap recovers the variance lost to window tapering.  Implemented with
 the same device step as Bartlett; only the host framing stride changes,
-so the estimator inherits the fused TPU path.
+so the estimator inherits the fused device path.
 """
 
 from __future__ import annotations

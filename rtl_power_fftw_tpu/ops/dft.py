@@ -1,25 +1,25 @@
-"""DFT-as-matmul backends for the MXU.
+"""DFT-as-matmul transform rungs.
 
-TPUs have no FFT hardware: the systolic array (MXU) does matmuls, the VPU
-does elementwise work.  For batched power spectra there are three viable
-designs, all provided here or in :mod:`spectral`:
+The matmul rungs express the DFT as dense matrix products, the other
+transform family beside the platform FFT.  For batched power spectra
+there are three basic designs, all provided here or in :mod:`spectral`:
 
 1. ``xla``     — ``jnp.fft.fft``: XLA's decomposition. Baseline.
 2. ``matmul``  — direct DFT as four real (F,N)x(N,N) matmuls. O(N²) FLOPs
-                 per frame but runs entirely on the MXU; wins for small N
+                 per frame but runs entirely as matmuls; wins for small N
                  where FFT overhead dominates.
 3. ``fourstep``— Bailey/Cooley-Tukey split N = N1·N2: two skinny matmul
-                 passes + a twiddle multiply. O(N·(N1+N2)) FLOPs on the MXU;
+                 passes + a twiddle multiply. O(N·(N1+N2)) FLOPs;
                  the scalable path for large N (including the 1M-point mode).
 
 The reference's equivalent is FFTW's plan (datastore.cxx:30-33); these are
-not translations of it but MXU-native formulations.
+not translations of it but matmul formulations.
 
-All matmuls run with ``precision=HIGHEST`` (f32 via bf16x6 passes) — the
-averaged-spectrum parity budget is 1e-5 relative. Measured on a v5e at
-N=2048: HIGHEST 2.8e-7 max rel err, HIGH (bf16x3) 2.4e-5 (+19% faster but
-over budget), DEFAULT (bf16) 3.8e-3. HIGH is a deliberate headroom knob
-for deployments that can accept 1e-4.
+All f32 matmuls pass ``precision=HIGHEST`` explicitly — the
+averaged-spectrum parity budget is 1e-5 relative, and a bare f32 dot may
+run at reduced precision (bf16 passes, or TF32 on a GPU). HIGH (bf16x3
+class) is a deliberate headroom knob for deployments that can accept
+~1e-4.
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def _dft_matrices(N: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def dft_power_matmul(re: jax.Array, im: jax.Array) -> jax.Array:
-    """|DFT(re + i·im)|² via four real MXU matmuls.
+    """|DFT(re + i·im)|² via four real matmuls.
 
     re, im: (..., N) float32.  Returns (..., N) float32 power.
     """
@@ -64,7 +64,7 @@ def dft_power_matmul(re: jax.Array, im: jax.Array) -> jax.Array:
 
 def best_fourstep_split(N: int) -> Tuple[int, int]:
     """Pick N = N1·N2 with N1, N2 as close as possible (minimises FLOPs
-    ∝ N1+N2) and both preferably multiples of MXU-friendly sizes."""
+    ∝ N1+N2)."""
     best = (1, N)
     for n1 in range(int(math.isqrt(N)), 0, -1):
         if N % n1 == 0:
@@ -115,8 +115,8 @@ def fourstep_psd_partial(re: jax.Array, im: jax.Array, fmask: jax.Array,
     dot_general output layout (F, n2, k1) is kept, the twiddle is stored
     pre-transposed, stage 2 contracts the n2 axis in place, and the frame
     reduction happens BEFORE the bin-order fixup so only an (N1, N2) tile
-    is ever reordered. This halves HBM traffic vs the naive formulation —
-    the difference between ~7 and ~9+ GS/s on a v5e.
+    is ever reordered. This halves device-memory traffic vs the naive
+    formulation.
 
     re, im: (F, N) float32; fmask: (F,) float32 validity mask.
     Returns (N,) float32, unshifted bins.
@@ -140,7 +140,7 @@ def fourstep_psd_partial(re: jax.Array, im: jax.Array, fmask: jax.Array,
 
     def cmatmul(ar, ai, br, bi, bsum):
         # Karatsuba 3-multiplication complex matmul: re = t1 − t2,
-        # im = (ar+ai)@(br+bi) − t1 − t2 — 3 MXU passes instead of 4
+        # im = (ar+ai)@(br+bi) − t1 − t2 — 3 matmul passes instead of 4
         # (measured +14% end-to-end at equal ~3e-7 accuracy).
         t1 = dot(ar, br)
         t2 = dot(ai, bi)
@@ -355,7 +355,7 @@ def fourstep4m_psd_partial(re: jax.Array, im: jax.Array, fmask: jax.Array,
     2^19), and probes/windowed_comp.py measured this compensated form
     at windowed 2^17 p50 1.19x class (vs 1.50x plain fourstep, 2.90x
     hybrid) — the accuracy recovery costs ~4/3 matmul passes (4-mult vs
-    Karatsuba's 3) plus the split-twiddle VPU term.
+    Karatsuba's 3) plus the split-twiddle elementwise term.
 
     re, im: (F, N) float32; fmask: (F,) float32. Returns (N,) float32,
     unshifted bins (same k = k1 + N1·k2 flattening as the family).
@@ -449,11 +449,8 @@ def _s1x_weight_terms(N1: int, n_terms: int, chunk_k: int):
 def _s1x_stacked_weights(N1: int):
     """K-STACKED split-pass stage-1 weights: the triangular pass set
     AND the complex combination folded into the contraction axis of
-    two (2·passes·N1, N1) bf16 stacks — the fused kernel's fat-matmul
-    trick (ops/kernels/fused_psd.py _constants; measured there as the
-    difference between 7.7 and 10.4 GS/s at 2048, and measured HERE as
-    1.5–1.9× over the narrow 40-dot form at N ≥ 8192,
-    probes/windowed_s1x_speed.py). lhs blocks are [xr_i per pass] +
+    two (2·passes·N1, N1) bf16 stacks — one fat matmul in place of
+    the narrow 40-dot form. lhs blocks are [xr_i per pass] +
     [xi_i per pass]; yr = lhs @ WR, yi = lhs @ WI. Accumulating all
     passes in one f32 chain is budget-safe: 9 of the 10 blocks carry
     terms ≤ 2⁻⁸..2⁻²⁴ of the dominant one, so their accumulation-error
@@ -610,9 +607,7 @@ def _fourstep4x_tail3_constants(N: int, N1: int, N2: int,
     outer hi+lo split twiddle (n2, k1) plus an inner four-step over the
     length-N2 stage-2 DFT (N2 = P·Q, its own hi+lo split twiddle) —
     the direct (N2×N2) stage-2 matmul is quadratic in N2 and falls off
-    a measured cliff once the rectangular stage-1 split pushes N2 past
-    ~256 (8192 = 16×512 ran 2.3 GS/s direct vs 9.4 at 4096 = 16×256,
-    probes/windowed_s1x_speed.py)."""
+    a cliff once the rectangular stage-1 split pushes N2 past ~256."""
     n2 = np.arange(N2, dtype=np.int64)[:, None]
     k1 = np.arange(N1, dtype=np.int64)[None, :]
     ang = -2.0 * np.pi * ((n2 * k1) % N).astype(np.float64) / N
@@ -674,8 +669,7 @@ def _fourstep4x_tail3(yr: jax.Array, yi: jax.Array, N: int, N1: int,
 def _fourstep4x_tail3_split(N2: int):
     """(P, Q) for the three-stage tail, or None when the direct
     chunked stage-2 matmul should stay (N2 <= 256, or no viable
-    factor). Gated exactly like the band: both factors >= 8 keep the
-    MXU contraction sane."""
+    factor). Both factors >= 8 keep the contraction depth sane."""
     if N2 <= 256:
         return None
     P, Q = best_fourstep_split(N2)
@@ -750,13 +744,11 @@ def fourstep_fft_psd_partial(re: jax.Array, im: jax.Array, fmask: jax.Array,
     """Masked partial PSD via a TWO-LEVEL FFT four-step: both stages are
     jnp.fft over a factor axis (N = N1·N2), twiddle in between.
 
-    The very-large-N workhorse: XLA lowers a MONOLITHIC 2²⁰-point FFT
-    poorly (measured 7-10 ms per 8-frame step on a v5e ≈ 0.8-1.2 GS/s),
-    but batched length-1024 FFTs are fast — the same transform computed
-    as fft(axis=n1) → twiddle → fft(axis=n2) runs ~1 ms per step
-    (~8.5 GS/s), at the HBM-traffic bound for the (F, N) complex64
-    intermediates. Matmul stages (fourstep_psd_partial*) cannot reach
-    this at huge N because each stage contracts K = √N ≈ 1024.
+    The CPU ladder's very-large-N rung: the same transform computed as
+    fft(axis=n1) → twiddle → fft(axis=n2) over batched short FFTs, bound
+    by the memory traffic of the (F, N) complex64 intermediates. Matmul
+    stages (fourstep_psd_partial*) cannot match it at huge N because
+    each stage contracts K = √N ≈ 1024.
 
     Same math as parallel/bigfft.py's distributed transform on one
     device (that module shards the n2/k1 axes over a mesh; this is the
@@ -790,16 +782,12 @@ def best_hybrid_split(N: int, lo: int = 64, hi: int = 512,
                       target: int = 128, min_n1: int = 1) -> Tuple[int, int]:
     """Split for the hybrid four-step: stage 2 (the f32-faithful HIGHEST
     matmul, the tone-robustness anchor) gets a lane-friendly length N2
-    near ``target`` — N2 = 128 matches the MXU/VPU lane width, so the
-    stage-2 contraction is one fat lane-aligned pass — while stage 1
-    (a batched FFT over the bf16-exact integer inputs) takes N1 = N/N2.
-
-    Measured v5e (probes/hybrid2048_splits.py, probes/hybrid_large.py):
-    the near-square split loses everywhere — N=1024 (8×128) 14.9 GS/s
-    vs (32×32) 11.2; N=2048 (16×128) 13.4 vs (32×64) 11.1 (and better
-    tone error); N=2²⁰ (8192×128) ~2× over two FFT stages. The tone
-    leak lives in stage 2's *precision*, not its length, so shrinking
-    N2 costs no accuracy (see fourstep_hybrid_psd_partial).
+    near ``target`` — a 128-wide stage-2 contraction is one fat
+    aligned pass — while stage 1 (a batched FFT over the bf16-exact
+    integer inputs) takes N1 = N/N2. The tone leak lives in stage 2's
+    *precision*, not its length, so shrinking N2 costs no accuracy (see
+    fourstep_hybrid_psd_partial). The CPU ladder uses the near-square
+    split instead (CPU BLAS accumulation tail).
 
     ``min_n1`` keeps the stage-1 FFT length sensible (the auto ladder
     uses 8). Returns (N1, N2); falls back to best_fourstep_split when N
@@ -864,10 +852,8 @@ def fourstep_hybrid_psd_partial(re: jax.Array, im: jax.Array,
     carry the tone coherently amplified by stage 1 (gain ~N1), so
     absolute stage-2 errors swamp small bins. Keeping the cheap fast
     stage 1 as an FFT (inputs are small dequantized integers), doing
-    stage 2 as an f32-faithful matmul on the MXU, and splitting the
-    twiddle lands at ≤8e-6 under the same tone — BETTER than the fused
-    Pallas kernel's 9e-6 — while running 10.8-13.2 GS/s at N=512-2048
-    on a v5e vs the 8.3-9.8 of the previous tone-robust defaults.
+    stage 2 as an f32-faithful matmul, and splitting the twiddle lands
+    at ≤8e-6 under the same tone.
 
     re, im: (F, N) float32; fmask: (F,) float32. Returns (N,) float32,
     unshifted bins. ``precision`` applies to the stage-2 matmuls
@@ -1104,11 +1090,11 @@ def bluestein_psd_partial(re: jax.Array, im: jax.Array, fmask: jax.Array,
 
 def dft_power_fourstep(re: jax.Array, im: jax.Array,
                        N1: int | None = None, N2: int | None = None) -> jax.Array:
-    """|DFT(re + i·im)|² via the four-step (Bailey) algorithm on the MXU.
+    """|DFT(re + i·im)|² via the four-step (Bailey) algorithm as matmuls.
 
     Index map: n = N2·n1 + n2, k = k1 + N1·k2.
       Y[k1,n2]  = Σ_{n1} x[n1,n2]·W_{N1}^{n1·k1}          (stage-1 matmul)
-      Z[k1,n2]  = Y[k1,n2]·W_N^{k1·n2}                      (twiddle, VPU)
+      Z[k1,n2]  = Y[k1,n2]·W_N^{k1·n2}                      (twiddle)
       X[k1,k2]  = Σ_{n2} Z[k1,n2]·W_{N2}^{n2·k2}           (stage-2 matmul)
     and the output is laid out so bin k = k1 + N1·k2.
 
@@ -1133,7 +1119,7 @@ def dft_power_fourstep(re: jax.Array, im: jax.Array,
 
     yr, yi = stage1(xr, xi)
 
-    # Twiddle (elementwise on the VPU).
+    # Twiddle (elementwise).
     zr = yr * tc - yi * ts
     zi = yr * ts + yi * tc
 
@@ -1152,10 +1138,10 @@ def _trunc_split3(z: jax.Array):
     ~2⁻²⁴·|z|).
 
     Uses mantissa TRUNCATION via integer bit-masking instead of a
-    bf16→f32 round trip: XLA under ``--xla_allow_excess_precision`` (set
-    on TPU) legally folds ``z - f32(bf16(z))`` to zero, silently
-    destroying round-trip-style splits outside Pallas. Bit arithmetic
-    cannot be folded. Truncation loses ~1 bit per term vs
+    bf16→f32 round trip: XLA under ``--xla_allow_excess_precision`` (on
+    by default) may legally fold ``z - f32(bf16(z))`` to zero, silently
+    destroying round-trip-style splits. Bit arithmetic cannot be
+    folded. Truncation loses ~1 bit per term vs
     round-to-nearest; the third term absorbs it.
     """
     def trunc(v):
@@ -1174,8 +1160,7 @@ def _trunc_split3(z: jax.Array):
 @functools.lru_cache(maxsize=8)
 def _mixed_constants(N: int, N1: int, N2: int):
     """bf16 3-term weight splits + f32 twiddles for the mixed-precision
-    four-step (same split scheme as the fused Pallas kernel, built for
-    XLA-level execution where the kernel's VMEM gate rejects N)."""
+    four-step."""
     import ml_dtypes
 
     def terms3(w):
@@ -1203,8 +1188,7 @@ def fourstep_psd_partial_mixed(re: jax.Array, im: jax.Array,
     """Masked partial PSD sum via a MIXED-PRECISION four-step DFT.
 
     Same transpose-free structure as :func:`fourstep_psd_partial`, but
-    every matmul runs as native bf16 MXU passes with manual splits
-    (the fused Pallas kernel's scheme at the XLA level):
+    every matmul runs as native bf16 passes with manual splits:
 
     * stage 1: dequantized integer inputs are bf16-exact, so a 3-term
       weight-only split gives f32-grade accuracy in 3 native passes per
@@ -1213,13 +1197,7 @@ def fourstep_psd_partial_mixed(re: jax.Array, im: jax.Array,
       (i+j ≥ 3) cross terms dropped — robust to tone-dominated dynamic
       range (a 2-term input split leaks ~2e-5 relative into small bins).
 
-    Serves the very-large-N modes (e.g. the 1M-point BASELINE config)
-    where the Pallas kernel's working set exceeds VMEM: measured on a
-    v5e at N=2²⁰ this runs 1.31 GS/s vs the XLA FFT's 0.97–1.19. At
-    moderate N it LOSES to Precision.HIGHEST four-step (XLA's emulated
-    f32 matmuls are efficient; the manual splits materialize extra bf16
-    intermediates — measured 2× slower at N=2048/8192), so it is not an
-    auto path there. Requires the dequantized integer inputs convention
+    No auto band selects it. Requires the dequantized integer inputs convention
     (|re|, |im| ≤ 256, exact in bf16).
 
     re, im: (F, N) float32; fmask: (F,) float32. Returns (N,) float32.
@@ -1255,7 +1233,7 @@ def fourstep_psd_partial_mixed(re: jax.Array, im: jax.Array,
     yr = t1 - t2
     yi = t3 - t1 - t2
 
-    # Twiddle (pre-transposed (n2, k1) layout), f32 on the VPU.
+    # Twiddle (pre-transposed (n2, k1) layout), f32 elementwise.
     zr = yr * tc - yi * ts
     zi = yr * ts + yi * tc
 
@@ -1306,7 +1284,7 @@ def _mixed_cmatmul(zr, zi, w3r, w3i, w3s, exact: bool, dn):
 
 
 def best_threestep_split(N: int) -> Tuple[int, int, int]:
-    """N = A·B·C with factors as close to 128 as possible (fat MXU
+    """N = A·B·C with factors as close to 128 as possible (fat
     contractions, FLOPs ∝ A+B+C). Only useful for large N."""
     best = None
     a = 1
@@ -1379,7 +1357,7 @@ def threestep_psd_partial_mixed(re: jax.Array, im: jax.Array,
     A two-level split of N = 2²⁰ contracts K = 1024 per stage (≈2048
     MACs/sample); three levels with A,B,C ≈ 128 need only ≈A+B+C
     MACs/sample per pass-set — ~6× fewer FLOPs, with every contraction
-    still MXU-fat. Same precision scheme as the fused kernel /
+    still fat. Same precision scheme as
     :func:`fourstep_psd_partial_mixed` (exact integer stage 1, 3-term
     truncation splits after; accuracy sits at the four-step family's f32
     cancellation floor — see that function's docstring).

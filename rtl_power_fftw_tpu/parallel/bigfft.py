@@ -8,13 +8,13 @@ true sequence parallelism of the 1M-point long-integration mode
 the per-spectrum latency scales down with the mesh.
 
 Algorithm — the classic distributed four-step (transpose) FFT, mapped
-to TPU collectives:
+to device-mesh collectives:
 
     frame x[n], n = n1·N2 + n2, viewed as (N1, N2), sharded on n2
     1. local FFT over n1 (length N1) for the device's n2 columns
     2. local twiddle by W_N^(n2·k1) (n2 offset from the mesh position)
     3. lax.all_to_all over the mesh: (k1 full, n2 block) →
-       (k1 block, n2 full) — the distributed transpose rides ICI
+       (k1 block, n2 full) — the distributed transpose
     4. local FFT over n2 (length N2)
     5. masked |X|² frame reduction → per-device (N1/D, N2) partial bins
 
@@ -23,7 +23,7 @@ with the fused kernel and ops.spectral (fftshift once at finalization —
 same math as the reference's (−1)^n input flip, datastore.cxx:69-75).
 
 The reference has no analogue (FFTW on one core, datastore.cxx:81);
-this is what "scale the sequence axis over ICI" means TPU-natively.
+this is what "scale the sequence axis over the mesh" means.
 """
 
 from __future__ import annotations
@@ -224,7 +224,7 @@ class ShardedLargeFFTPsd:
         frames; each device_puts only its own column shards, and the
         global Array is assembled from single-device pieces (the same
         shape as MultiHostPsdStep._globalize). The all_to_all between the
-        transform stages then rides ICI within a host and DCN across."""
+        transform stages then rides the intra-host links and DCN across."""
         Fp = len(frames_u8)
         if Fp > self.F:
             raise ValueError(f"got {Fp} frames, step built for {self.F}")

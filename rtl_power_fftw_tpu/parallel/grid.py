@@ -10,7 +10,7 @@ once: a (streams, seq) 2-D `jax.sharding.Mesh` where
     leave the row),
   * within a row, every transform is the distributed four-step of
     bigfft.py — stage-1 FFT, column twiddle, `all_to_all` over the
-    `seq` axis (the distributed transpose rides the row's ICI links),
+    `seq` axis (the distributed transpose stays within the row),
     stage-2 FFT,
   * the per-row power partials are combined by ONE `psum` over the
     `stream` axis at the end (power accumulation commutes with any
@@ -18,9 +18,8 @@ once: a (streams, seq) 2-D `jax.sharding.Mesh` where
 
 The reference's analogue is "average many spectra" on one core
 (datastore.cxx:81-87 + the outer repeats loop); the composition itself
-has no analogue — it is what a TPU pod's 2-D ICI topology is for: lay
-the heavy all_to_all on one mesh axis, the cheap once-per-accumulation
-psum on the other.
+has no analogue — it lays the heavy all_to_all on one mesh axis and the
+cheap once-per-accumulation psum on the other.
 
 Validated on the forced-CPU multi-device harness with 2×4 / 4×2 meshes
 (tests/test_sharding.py) and exercised by ``__graft_entry__``'s
@@ -99,8 +98,8 @@ class GridPsdStep:
             # x_u16: (1, F, N1, N2/Dq) — this device's columns of its
             # row's stream group; n_valid: (1,) i32. The transform
             # pipeline is the shared distributed four-step core; naming
-            # only the seq axis keeps each row's all_to_all on its own
-            # ICI links, untouched by other rows.
+            # only the seq axis keeps each row's all_to_all within the
+            # row, untouched by other rows.
             part = fourstep_local_core(x_u16[0], n_valid[0], axis="seq",
                                        N=N, N1=N1, N2=N2, D=Dq, F=F,
                                        wargs=wargs)       # (N1/Dq, N2)

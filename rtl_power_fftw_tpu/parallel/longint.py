@@ -20,7 +20,7 @@ from .sharded import ShardedPsdStep
 
 # Step cache: jax.jit caches per function OBJECT, so rebuilding the
 # ShardedPsdStep every call would retrace + recompile identical shapes
-# (20-150 s per shape on the real TPU). Windowed steps key on the window
+# (seconds per shape). Windowed steps key on the window
 # BYTES so a different window array correctly rebuilds.
 _step_cache: dict = {}
 

@@ -1,11 +1,11 @@
 """Device-mesh helpers.
 
 The reference's only concurrency is a 2-thread producer/consumer pipe on
-one CPU (SURVEY §2 parallelism block).  The TPU-native scaling axes are:
+one CPU (SURVEY §2 parallelism block).  The device-mesh scaling axes are:
 
 * ``stream`` — independent IQ streams (data parallelism): each device owns
   a subset of streams and accumulates its own spectra; averaging across
-  streams is one ``psum`` over ICI (BASELINE.json config 5);
+  streams is one ``psum`` (BASELINE.json config 5);
 * ``bin`` — for huge transforms (the 1M-point mode), the frame axis can
   also be sharded so each device FFTs a slice of the frame batch and the
   accumulated |X|² is psum-reduced — numerically identical because power

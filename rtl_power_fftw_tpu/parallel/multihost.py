@@ -6,8 +6,8 @@ scale-out story (SURVEY §5 "DCN only if multi-host streams are in
 scope"): a global 1-D ``stream`` mesh spans every device of every
 process, each process builds the global batch from its *local* shards
 (no host ever sees another host's samples), and the combined (N,)
-spectrum comes back replicated everywhere. Collectives ride ICI within
-a host and DCN across hosts — chosen by XLA, not by this code.
+spectrum comes back replicated everywhere. Collectives ride the intra-host links
+within a host and DCN across hosts — chosen by XLA, not by this code.
 
 Tested for real with two CPU processes × 4 virtual devices
 (tests/test_multihost.py).

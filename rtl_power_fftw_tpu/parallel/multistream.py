@@ -1,6 +1,6 @@
 """Multi-stream acquisition: S parallel IQ sources → one averaged spectrum.
 
-BASELINE.json config 5: "16 parallel IQ streams sharded across a TPU mesh
+BASELINE.json config 5: "16 parallel IQ streams sharded across a device mesh
 with psum-reduced averaged spectra".  Each stream gets its own producer
 thread feeding a BOUNDED queue of fixed-shape frame batches — the
 multi-device generalization of the reference's single producer loop with
@@ -9,7 +9,7 @@ is full, and the free-slot count is histogrammed at every hand-off
 (the "first number nonzero ⇒ compute too slow" diagnostic,
 doc/rtl_power_fftw.1.md:136-148).  The consumer assembles one (S, F, 2N)
 batch per round, dispatches it as a sharded device step (stream axis over
-the mesh, cross-stream psum over ICI), and keeps a small in-flight window
+the mesh, cross-stream psum), and keeps a small in-flight window
 so acquisition, host→device transfer, and compute overlap.
 
 Memory is O(S · queue_depth · F · 2N) regardless of ``repeats`` — a long
@@ -162,8 +162,7 @@ class MultiStreamAcquisition:
         else:
             self.step = ShardedPsdStep(
                 mesh, params.N, frames_per_step, streams=S, window=window,
-                backend=params.fft_backend if params.fft_backend != "pallas"
-                else "auto")
+                backend=params.fft_backend)
         self.S = S
         # Welch overlap applies per stream, same as the single-stream
         # Datastore (shared formula).

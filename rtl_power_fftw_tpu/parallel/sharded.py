@@ -1,11 +1,11 @@
 """Multi-stream sharded PSD accumulation over a device mesh.
 
-TPU-native replacement for "average many spectra" at scale
-(BASELINE.json config 5: 16 parallel IQ streams sharded across a TPU mesh
-with psum-reduced averaged spectra).  Streams are laid out on a 1-D
+Device-mesh replacement for "average many spectra" at scale
+(BASELINE.json config 5: 16 parallel IQ streams sharded across a device
+mesh with psum-reduced averaged spectra).  Streams are laid out on a 1-D
 ``stream`` mesh axis with ``shard_map``; each device runs the same fused
 dequant→window→FFT→|X|² step on its local streams, and the cross-stream
-average is ONE ``psum`` of the (N,)-shaped partial sums over ICI — the
+average is ONE ``psum`` of the (N,)-shaped partial sums — the
 collective-equivalent of the reference's serial accumulation loop
 (datastore.cxx:82-87).
 """
@@ -68,26 +68,16 @@ class ShardedPsdStep:
         # Band selection is the SHARED chooser (ops.spectral.
         # select_transform_rung) — the sharded and single-stream ladders
         # cannot diverge; this builder only constructs the streams
-        # variants of the chosen rung (per-stream masking/output tiles
-        # for the kernel, vmapped partials + one psum otherwise).
-        self._u16_in = False
-        #: selected ladder rung ("pallas" | "hybrid" | "fourstep" |
-        #: "fourstep4m" | "fft4" | "bluestein" | "xla" | "matmul" — the
-        #: last via explicit request, compile fallback, or pre-flight
-        #: downgrade) — same introspection contract as PsdStep.path.
+        # variants of the chosen rung (vmapped partials + one psum).
+        #: selected rung ("hybrid" | "fourstep" | "fourstep4m" |
+        #: "fourstep4x" | "fft4" | "bluestein" | "xla" | "matmul" — the
+        #: last via explicit request or compile fallback) — same
+        #: introspection contract as PsdStep.path.
         from ..ops.spectral import select_transform_rung
-        windowed = window_arr is not None
-        tpu = jax.default_backend() == "tpu"
-        self.path, split = select_transform_rung(N, self.F, windowed,
-                                                 backend, tpu)
-        pallas_kernel = None
+        self.path, split = select_transform_rung(
+            N, window_arr is not None, backend)
         fused = None
-        if self.path == "pallas":
-            from ..ops.kernels.fused_psd import make_fused_psd_fn
-            pallas_kernel = make_fused_psd_fn(
-                N, self.F, windowed=windowed, streams=streams // n_dev)
-            self._u16_in = True
-        elif self.path == "hybrid":
+        if self.path == "hybrid":
             from ..ops.dft import fourstep_hybrid_psd_partial
             fused = (fourstep_hybrid_psd_partial, *split)
         elif self.path == "fourstep":
@@ -103,29 +93,12 @@ class ShardedPsdStep:
             # Very-large-N (e.g. the frame-sharded 1M mode, longint.py).
             from ..ops.dft import fourstep_fft_psd_partial
             fused = (fourstep_fft_psd_partial, *split)
-        elif self.path == "xla":
-            # Pre-flight refusal-prone monolithic-FFT sizes in a child
-            # process and pre-emptively downgrade — shared decision with
-            # PsdStep (ops.spectral.resolve_xla_rung).
-            from ..ops.spectral import resolve_xla_rung
-            self.path = resolve_xla_rung(N, tpu, "the sharded step")
-            if self.path == "matmul":
-                power_fn = _power_backend("matmul", N)
-        if self.path == "bluestein":
+        elif self.path == "bluestein":
             from ..ops.dft import bluestein_psd_partial
             fused = (bluestein_psd_partial, None, None)
 
-        def local_step_pallas(raw16, n_valid, *w):
-            # raw16: (S_local, F, N) u16 (host-side view of the u8 pairs).
-            S_l = raw16.shape[0]
-            per_stream = pallas_kernel(
-                raw16.reshape(S_l * F_, N_), n_valid,
-                *(w if w else ())).reshape(S_l, N_)
-            combined = jax.lax.psum(per_stream.sum(axis=0), axis)
-            return per_stream, combined
-
-        if fused is not None:
-            self._u16_in = True
+        # Fused rungs take the free host-side u16 view of the IQ pairs.
+        self._u16_in = fused is not None
         u16_in = self._u16_in
 
         def local_step(raw, n_valid, *w):
@@ -152,19 +125,14 @@ class ShardedPsdStep:
                 pwr = pwr * fmask[:, :, None]
                 g = F_ // chunk
                 per_stream = pwr.reshape(S_local, g, chunk, N_).sum(2).sum(1)
-            # Cross-stream reduction: local sum then one psum over ICI.
+            # Cross-stream reduction: local sum then one psum over the mesh.
             combined = jax.lax.psum(per_stream.sum(axis=0), axis)
             return per_stream, combined
 
         in_specs = (P(axis), P(axis)) + ((P(),) if window_arr is not None else ())
         out_specs = (P(axis), P())
-        # check_vma=False: pallas_call's out_shape cannot declare varying-
-        # mesh-axes metadata, which the default vma check demands when a
-        # kernel runs inside shard_map.
-        sharded = shard_map(
-            local_step_pallas if pallas_kernel is not None else local_step,
-            mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            check_vma=False)
+        sharded = shard_map(local_step, mesh=mesh, in_specs=in_specs,
+                            out_specs=out_specs)
         self._window = window_arr
         self._step = jax.jit(sharded)
         self._raw_sharding = NamedSharding(mesh, P(axis))
@@ -180,7 +148,7 @@ class ShardedPsdStep:
         if isinstance(raw, np.ndarray):
             if self._u16_in and raw.dtype == np.uint8:
                 # Free host-side reinterpretation of the interleaved IQ
-                # pairs as u16 lanes (the fused kernel's input convention).
+                # pairs as u16 lanes (the fused rungs' input convention).
                 raw = raw.view(np.uint16)
             # Explicit host→device placement along the stream sharding, so
             # each device receives only its stream shard.

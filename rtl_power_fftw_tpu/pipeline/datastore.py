@@ -1,11 +1,11 @@
 """The compute pipeline: host buffer pool feeding asynchronous device steps.
 
-TPU-native redesign of the reference's ``Datastore``
+Device-side redesign of the reference's ``Datastore``
 (/root/reference/src/datastore.{h,cxx}).  The shape is the same —
 a bounded pool of reusable byte buffers connecting an acquisition producer
 to a spectral consumer, with backpressure and a queue-depth histogram —
 but the consumer is not a CPU FFT loop: it slices buffers into fixed-shape
-frame batches and dispatches ONE jitted TPU step per batch
+frame batches and dispatches ONE jitted device step per batch
 (dequant → window → batched FFT → masked |X|² partial sum).  JAX's async
 dispatch pipelines host slicing, host↔device transfer and device compute;
 a small in-flight window bounds device memory.
@@ -17,7 +17,7 @@ Reference-parity details preserved:
 * frames carry across buffer boundaries (FrameSlicer);
 * processing stops at exactly ``repeats`` frames (datastore.cxx:67);
 * partial sums accumulate into float64 on the host — matching the
-  reference's double accumulator (datastore.h:53) without TPU f64.
+  reference's double accumulator (datastore.h:53) without device f64.
 """
 
 from __future__ import annotations
@@ -207,7 +207,7 @@ class Datastore:
 
     @property
     def transform_path(self) -> str:
-        """Which ladder rung the device step runs ("pallas" | "hybrid" |
+        """Which ladder rung the device step runs ("hybrid" |
         "fourstep" | "fft4" | "bigfft" | "xla" | estimator names) —
         surfaced in the verbose banner and --stats-json records. A LIVE
         view: a mid-run compile fallback that rebuilds the step on the

@@ -1,7 +1,7 @@
 """Recorded-stream IQ source: raw interleaved u8 IQ from a file.
 
 The reference can only read from live hardware; recorded input is the
-natural TPU-framework equivalent for reproducible runs and benchmarks
+natural framework equivalent for reproducible runs and benchmarks
 (BASELINE.json config 1: "recorded 2.048 MS/s int8 IQ buffer").
 """
 

@@ -4,7 +4,7 @@ compute path, used to pin numerical semantics.
 Transcribes datastore.cxx:48-96 (dequant, (−1)^n phase flip, window, FFT,
 |X|² accumulation in float64) and acquisition.cxx:376-399 (DC interpolation,
 normalization, dB, baseline), computed in float64 throughout so it serves
-as ground truth for both the FFTW-float32 original and the TPU float32
+as ground truth for both the FFTW-float32 original and the device float32
 pipeline (each should match it to ~1e-6·N relative).
 """
 

@@ -35,7 +35,7 @@ def main() -> None:
     # Pace the stream at N bytes/second (0 = as fast as the socket
     # drains) and loop a bounded pattern buffer when --bytes exceeds
     # it — how a real dongle behaves (fixed sample rate, endless
-    # stream). Used by the endurance soak (probes/soak_tpu.py).
+    # stream).
     ap.add_argument("--rate", type=int, default=0)
     args = ap.parse_args()
 

@@ -2,12 +2,9 @@
 framework.
 
 The reference plans ANY N through FFTW (datastore.cxx:30-33). The
-rebuild's auto ladder previously delegated awkward N (no factor >= 8)
-above the matmul cap to the platform's monolithic FFT — which the
-current TPU toolchain refuses at 2^16..2^20 WITH client poisoning, so a
-session at e.g. N = 2·49999 died with the typed exit 7. The bluestein
-rung closes that: one pow-2 circular convolution riding the framework's
-batched-short-FFT stages (ops/dft.py bluestein_psd_partial).
+bluestein rung is the framework's own arbitrary-N transform: one pow-2
+circular convolution riding batched short FFTs (ops/dft.py
+bluestein_psd_partial), reachable as an explicit backend.
 """
 
 import numpy as np
@@ -82,27 +79,15 @@ def test_partial_parity_vs_f64(N):
 
 
 def test_rung_selection():
-    """Auto ladder: TPU sends awkward N > 8192 to bluestein; CPU keeps
-    the platform FFT (it IS the FFTW class there); explicit requests
-    are honored anywhere."""
-    # 2·prime (no factor >= 8) above the matmul cap:
-    for N in (9998, 99998, 2 * 100003):
-        assert select_transform_rung(N, 8, False, "auto", tpu=True)[0] \
-            == "bluestein", N
-        assert select_transform_rung(N, 8, True, "auto", tpu=True)[0] \
-            == "bluestein", N
-        assert select_transform_rung(N, 8, False, "auto", tpu=False)[0] \
-            == "xla", N
-    # Below the matmul cap the platform FFT keeps the rung on TPU (it
-    # compiles there — verified live at Bluestein-class N ~1000).
-    assert select_transform_rung(998, 8, False, "auto", tpu=True)[0] == "xla"
-    # Composite very-large N stays on the measured four-step family.
-    assert select_transform_rung(1 << 20, 8, False, "auto", tpu=True)[0] \
-        == "hybrid"
-    # Explicit request works for any N on any platform.
-    for tpu in (False, True):
-        assert select_transform_rung(500, 8, False, "bluestein", tpu)[0] \
-            == "bluestein"
+    """Auto keeps the platform FFT for awkward N (no factor >= 8) — on
+    CPU it IS the FFTW class, on the GPU it is cuFFT; explicit requests
+    are honored for any N."""
+    for N in (998, 9998, 99998, 2 * 100003):
+        for windowed in (False, True):
+            assert select_transform_rung(N, windowed, "auto")[0] == "xla", N
+    # Composite very-large N stays on the two-level FFT four-step.
+    assert select_transform_rung(1 << 20, False, "auto")[0] == "fft4"
+    assert select_transform_rung(500, False, "bluestein")[0] == "bluestein"
 
 
 def test_psdstep_explicit_bluestein():
@@ -167,81 +152,17 @@ def test_sharded_bluestein_parity():
     assert errc.max() < 1e-5
 
 
-def test_xla_preflight_downgrade(monkeypatch):
-    """Ask #5 (round-3 verdict): a session whose selected rung is "xla"
-    on a refusal-prone toolchain must degrade to a working rung BEFORE
-    touching the monolithic lowering (which poisons the client on the
-    measured backend), instead of dying with the typed exit 7.
-    Simulated here via the forced-preflight env hooks."""
-    monkeypatch.setenv("RPF_FFT_PREFLIGHT", "1")
-    monkeypatch.setenv("RPF_FFT_PREFLIGHT_FORCE", "fail")
-    # Below the matmul weight cap → matmul.
-    step = PsdStep(998, 8, backend="xla")
-    assert step.path == "matmul"
-    raw = np.random.default_rng(2).integers(
-        0, 256, (step.F, 2 * 998)).astype(np.uint8)
-    re = raw[:, 0::2].astype(np.float32) - 127
-    im = raw[:, 1::2].astype(np.float32) - 127
-    got = np.asarray(step(raw, step.F), np.float64)
-    want = _want(re, im, np.ones(step.F, np.float32))
-    err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
-    assert err.max() < 1e-5
-    # Above the cap → bluestein.
-    step = PsdStep(9998, 8, backend="xla")
-    assert step.path == "bluestein"
-    # Forced-ok keeps the requested rung.
-    monkeypatch.setenv("RPF_FFT_PREFLIGHT_FORCE", "ok")
-    step = PsdStep(9998, 8, backend="xla")
-    assert step.path == "xla"
-    # Disabled pre-flight leaves the rung untouched too.
-    monkeypatch.setenv("RPF_FFT_PREFLIGHT", "0")
-    monkeypatch.setenv("RPF_FFT_PREFLIGHT_FORCE", "fail")
-    step = PsdStep(9998, 8, backend="xla")
-    assert step.path == "xla"
-
-
-def test_sharded_xla_preflight_downgrade(monkeypatch):
-    from rtl_power_fftw_tpu.parallel.sharded import ShardedPsdStep
-    from jax.sharding import Mesh
-
-    devs = jax.devices()
-    if len(devs) < 8:
-        pytest.skip("needs an 8-device mesh (CPU harness)")
-    monkeypatch.setenv("RPF_FFT_PREFLIGHT", "1")
-    monkeypatch.setenv("RPF_FFT_PREFLIGHT_FORCE", "fail")
-    mesh = Mesh(np.array(devs[:8]), ("stream",))
-    sh = ShardedPsdStep(mesh, 998, 8, streams=8, backend="xla")
-    assert sh.path == "matmul"
-    sh = ShardedPsdStep(mesh, 9998, 8, streams=8, backend="xla")
-    assert sh.path == "bluestein"
-
-
 def test_tapered_batch_mode_rules(monkeypatch):
-    """The estimator-family transform chooser (multitaper/PFB/SK): on
-    TPU, any composite N with a factor >= 8 rides the all-matmul
-    four-step (round 4 lifted the 65536 cap — the old rule would hand a
-    2^17 estimator session to the refusal-poisoned monolithic
-    lowering), awkward N above the matmul cap ride the chirp-Z, and CPU
-    keeps the platform FFT (the class yardstick)."""
+    """The estimator-family transform chooser (multitaper/PFB/SK) takes
+    the platform FFT on the GPU band table and on CPU alike — any N,
+    composite or awkward."""
     import jax
     from rtl_power_fftw_tpu.ops.spectral import tapered_batch_mode
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert tapered_batch_mode(2048) == "fourstep"
-    assert tapered_batch_mode(1 << 17) == "fourstep"   # cap lifted
-    assert tapered_batch_mode(99998) == "bluestein"    # 2·prime, > cap
-    # Small awkward N goes through the SAME out-of-process compile
-    # resolver as the PSD xla rung (the monolithic lowering is refused
-    # at every probed size on the 2026-08-19 toolchain): the platform
-    # FFT when it proves compilable, matmul otherwise.
-    monkeypatch.setenv("RPF_FFT_PREFLIGHT_FORCE", "ok")
-    assert tapered_batch_mode(122) == "xla"
-    monkeypatch.setenv("RPF_FFT_PREFLIGHT_FORCE", "fail")
-    assert tapered_batch_mode(122) == "matmul"
-    monkeypatch.delenv("RPF_FFT_PREFLIGHT_FORCE")
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert tapered_batch_mode(2048) == "xla"
-    assert tapered_batch_mode(99998) == "xla"
+    for backend in ("gpu", "cpu"):
+        monkeypatch.setattr(jax, "default_backend", lambda: backend)
+        for N in (122, 2048, 1 << 17, 99998):
+            assert tapered_batch_mode(N) == "xla", (backend, N)
 
 
 def test_estimator_bluestein_modes_parity():

@@ -1,8 +1,6 @@
 """Mixed-precision (native-bf16 split) large-N transforms: golden parity
-on the CPU harness. These serve very large N where the fused Pallas
-kernel's working set exceeds VMEM (see BENCHMARKS.md: at N=2^20 all
-formulations are HBM-bound ~1.3 GS/s; XLA's FFT stays the accuracy-first
-default)."""
+on the CPU harness. No auto band selects them; the platform FFT stays
+the accuracy-first default."""
 
 import numpy as np
 import pytest

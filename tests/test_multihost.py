@@ -25,11 +25,10 @@ def _free_port():
     return port
 
 
-@pytest.mark.parametrize("N,backend", [(64, "auto"), (256, "pallas")])
+@pytest.mark.parametrize("N,backend", [(64, "auto"), (256, "hybrid")])
 def test_two_process_psum_matches_golden(tmp_path, N, backend):
-    """backend='pallas' additionally exercises the fused kernel's streams
-    variant (interpret mode) + the host-side u16 view through the global
-    multihost Array assembly."""
+    """backend='hybrid' additionally exercises a fused rung's host-side
+    u16 view through the global multihost Array assembly."""
     coordinator = f"127.0.0.1:{_free_port()}"
     outs = [str(tmp_path / f"p{i}.npy") for i in range(2)]
     env = {k: v for k, v in os.environ.items()

@@ -44,7 +44,7 @@ def test_multitaper_session_step_matches_direct_float64():
 
 
 def test_multitaper_fourstep_mode_matches_direct():
-    """The TPU-band transform ("fourstep" mode — all-matmul four-step on
+    """The matmul transform ("fourstep" mode — all-matmul four-step on
     the tapered batch) is numerically interchangeable with the XLA mode,
     pinned here on CPU where both lower."""
     import jax.numpy as jnp
@@ -78,7 +78,7 @@ def test_multitaper_cli_validation():
             parse_args(argv)
     # Concentration warning for K > 2NW-1; backend/precision ignored note.
     p = parse_args(["-f", "100M", "--multitaper", "8",
-                    "--fft-backend", "pallas"], stderr=err)
+                    "--fft-backend", "hybrid"], stderr=err)
     assert p.multitaper == 8
     text = err.getvalue()
     assert "well concentrated" in text
@@ -161,19 +161,18 @@ def test_multitaper_nw_bound_is_typed_error():
 
 
 def test_multitaper_precision_high_fast_mode(monkeypatch):
-    """--precision high on the multitaper TPU band selects the PLAIN
-    K-looped four-step (the relaxed tier: 640 vs 823 us measured at the
-    round-3 accuracy class — probes/multitaper_fast2.py); the default
-    stays the compensated partial. Numerics of both pinned vs f64."""
+    """On the GPU band table the multitaper step takes the platform FFT
+    whatever --precision says (the relaxed "fourstep-fast" tier applies
+    only to the matmul "fourstep" mode, which auto no longer picks).
+    Numerics of both pinned vs f64."""
     import jax
-    import jax.numpy as jnp
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     N, K, F = 64, 3, 8
     fast = MultitaperSessionStep(N, F, K=K, precision="high")
-    assert fast._mode == "fourstep-fast"
+    assert fast._mode == "xla"
     slow = MultitaperSessionStep(N, F, K=K)
-    assert slow._mode == "fourstep"
+    assert slow._mode == "xla"
     rng = np.random.default_rng(5)
     raw = rng.integers(0, 256, size=(F, 2 * N), dtype=np.uint8)
     want = _direct_mt_pwr(raw, N, K)

@@ -122,7 +122,7 @@ def test_pfb_session_e2e_tone_peak(tmp_path):
 
 
 def test_pfb_fourstep_mode_matches_direct():
-    """The TPU-band transform for the polyphase sums ("fourstep" mode —
+    """The matmul transform for the polyphase sums ("fourstep" mode —
     all-matmul four-step on the windowed-class planes, never the
     monolithic FFT) is numerically interchangeable with the XLA mode,
     pinned here on CPU where both lower."""

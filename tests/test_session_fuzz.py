@@ -22,7 +22,7 @@ from golden import golden_accumulate, golden_finalize
 
 # (N, repeats, buf_bytes, window, linear) — N values pick different auto
 # backends: 64/500 four-step or XLA (odd factors), 256/1024 four-step,
-# 2048 the pallas-eligible size (interpret mode on this CPU harness).
+# 2048 the hybrid rung on the CPU ladder.
 CASES = [
     (64, 37, 16384, "", False, []),
     (500, 20, 16384, "", False, []),      # non-power-of-two (doc example)
@@ -34,10 +34,8 @@ CASES = [
     (320, 25, 16384, "flattop", False, []),  # N = 2^6·5: mixed-radix
     (6144, 5, 49152, "", False, []),      # 3·2^11: mid-band composite
     # Round-4 awkward-point pins (VERDICT r3 #8): the large-prime class
-    # on the chirp-Z rung (N = 2·1019 — the TPU auto pick above 8192;
-    # exercised here via the explicit backend since CPU auto keeps the
-    # platform FFT), and a windowed very-large-N shape (the 2^19-class
-    # point where the TPU windowed ladder decision lives).
+    # on the chirp-Z rung (N = 2·1019, via the explicit backend since
+    # auto keeps the platform FFT), and a windowed very-large-N shape.
     (2038, 7, 16384, "hamming", False, ["--fft-backend", "bluestein"]),
     (1 << 19, 2, 1 << 21, "hann", False, []),
 ]

@@ -77,7 +77,7 @@ def test_sk_s1_bit_identical_to_plain_psd_step():
 
 
 def test_sk_fourstep_mode_matches_xla_mode():
-    """The TPU-band transform choice ("fourstep") is numerically
+    """The matmul transform mode ("fourstep") is numerically
     interchangeable with the platform-FFT mode, pinned on CPU where both
     lower."""
     import jax.numpy as jnp
@@ -115,7 +115,7 @@ def test_sk_cli_validation():
     # Fused backends can't expose per-frame spectra: warn, don't fail.
     err = io.StringIO()
     p = parse_args(["-f", "100M", "--sk-file", "sk.txt",
-                    "--fft-backend", "pallas"], stderr=err)
+                    "--fft-backend", "hybrid"], stderr=err)
     assert p.sk_file == "sk.txt"
     assert "per-frame" in err.getvalue()
     # A window is fine alongside the sidecar.

@@ -26,10 +26,10 @@ EXPECTED_SHA256 = "f743f03a462278b20974c3d3fe1c6ac8921a939a97d4a310ab50a33a8d83d
 
 def test_session_output_snapshot():
     import jax
-    if jax.default_backend() == "tpu":
-        # The snapshot freezes CPU-backend bytes; TPU numerics agree to
-        # ~3e-7 but 6-sig-fig formatting can flip last digits. Numerical
-        # parity on TPU is covered by the golden/kernel tests.
+    if jax.default_backend() != "cpu":
+        # The snapshot freezes CPU-backend bytes; accelerator numerics
+        # agree to ~1e-6 but 6-sig-fig formatting can flip last digits.
+        # Numerical parity there is covered by the golden tests.
         pytest.skip("byte snapshot is CPU-backend-specific")
     src = SyntheticSource(tones=[(100_300_000, 30.0)], noise=6.0, seed=2024)
     params = parse_args(["-f", "100M:103M", "-n", "25", "-b", "500",
